@@ -1,11 +1,11 @@
-"""halo2_regex_tpu — a TPU-native DFA regex-matching and witness-generation
-framework.
+"""halo2_regex_tpu — a batched DFA regex-matching and witness-generation
+framework on JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 zkemail/halo2-regex: decomposed regexes compile to dense byte-level DFA
 transition tables; the per-byte state scan, substring-id tagging, masked
-extraction and witness-row emission run as batched tensor programs on TPU,
-scaling data-parallel across a device mesh.
+extraction and witness-row emission run as one fused GPU kernel (or the
+portable XLA scan), scaling data-parallel across a device mesh.
 
 Quick start::
 
@@ -48,7 +48,8 @@ __version__ = "0.1.0"
 
 # Heavier / optional-dependency entry points load lazily.
 _LAZY = {
-    "PallasMatcher": ("halo2_regex_tpu.ops.pallas_scan", "PallasMatcher"),
+    "GpuScanMatcher": ("halo2_regex_tpu.ops.gpu_scan", "GpuScanMatcher"),
+    "best_matcher": ("halo2_regex_tpu.ops", "best_matcher"),
     "DistributedMatcher": ("halo2_regex_tpu.parallel.data_parallel", "DistributedMatcher"),
     "SeqShardedMatcher": ("halo2_regex_tpu.parallel.seq_parallel", "SeqShardedMatcher"),
     "make_mesh": ("halo2_regex_tpu.parallel.mesh", "make_mesh"),
@@ -75,7 +76,8 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
-    "PallasMatcher",
+    "GpuScanMatcher",
+    "best_matcher",
     "DistributedMatcher",
     "SeqShardedMatcher",
     "make_mesh",

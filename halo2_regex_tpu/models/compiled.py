@@ -3,7 +3,7 @@
 The reference keeps its DFA as a ``HashMap<(u8, u64), (usize, u64)>``
 (reference: src/defs.rs:28) and scans it byte-by-byte on the host
 (lib.rs:804-823). Here the same information is packed into dense arrays
-laid out for TPU gathers (SURVEY §7, BASELINE north_star):
+laid out for batched device gathers (SURVEY §7):
 
   - ``transition[n_defs, 256, s_pad]``: next-state table; missing
     transitions and the DUMMY/DEAD rows map to the per-def DEAD sentinel;

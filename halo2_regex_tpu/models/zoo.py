@@ -142,3 +142,28 @@ def email_headers_model(max_chars_size: int = 1024, headers=("from", "to", "subj
     name_map = {"from": "email_from", "to": "email_to", "subject": "email_subject"}
     cfgs = [get_config(name_map[h], max_chars_size) for h in headers]
     return CompiledRegexModel.from_decomposed(cfgs, max_chars_size=max_chars_size)
+
+
+def random_table_model(n_states: int = 1000, max_chars_size: int = 65536,
+                       seed: int = 0, alphabet=range(32, 127)):
+    """The large-DFA stress model (BASELINE configs[3]): one def whose
+    table sends every (printable byte, state) pair to a seeded random
+    state — adversarial (it never resynchronizes) and substr-free."""
+    import numpy as np
+
+    from .compiled import CompiledRegexModel
+    from .defs import AllstrRegexDef, RegexDefs
+
+    rng = np.random.default_rng(seed)
+    allstr = AllstrRegexDef(
+        first_state_val=0, accepted_state_val=1,
+        largest_state_val=n_states - 1,
+    )
+    line = 3
+    for c in alphabet:
+        for s in range(n_states):
+            allstr.state_lookup[(c, s)] = (line, int(rng.integers(0, n_states)))
+            line += 1
+    return CompiledRegexModel.from_defs(
+        [RegexDefs(allstr=allstr, substrs=[])], max_chars_size=max_chars_size
+    )

@@ -1,14 +1,20 @@
 """ctypes bindings for the native C++ scan engine.
 
-Builds ``scan.cpp`` lazily with g++ on first use (cached in
-``native/build/``) and exposes numpy-friendly wrappers. If no C++
-toolchain is available the import still succeeds; ``available()`` reports
-False and callers fall back to the pure-Python oracle.
+Builds ``scan.cpp`` lazily with g++ on first use and exposes numpy-friendly
+wrappers.  The library in ``native/build/`` is named by a hash of the
+source, the compiler flags and the machine (``-march=native`` code is
+specific to the CPU that built it), so a checkout copied to another
+machine builds its own.  If no C++ toolchain is available the import
+still succeeds; ``available()`` reports False and callers fall back to the
+pure-Python oracle.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import platform
 import subprocess
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -22,19 +28,31 @@ _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 
+_BASE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_FLAG_LADDER = (("-march=native", "-fopenmp"), ("-fopenmp",), ())
+
+
+def _build_key() -> str:
+    h = hashlib.sha256(_SRC.read_bytes())
+    h.update(repr((_BASE_FLAGS, _FLAG_LADDER)).encode())
+    h.update(repr(platform.uname()).encode())
+    return h.hexdigest()[:16]
+
+
 def _build() -> Optional[Path]:
     _BUILD_DIR.mkdir(exist_ok=True)
-    so_path = _BUILD_DIR / "libh2rscan.so"
-    if so_path.exists() and so_path.stat().st_mtime >= _SRC.stat().st_mtime:
+    so_path = _BUILD_DIR / f"libh2rscan-{_build_key()}.so"
+    if so_path.exists():
         return so_path
-    base = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", str(so_path)]
-    for flags in (["-march=native", "-fopenmp"], ["-fopenmp"], []):
-        cmd = base[:2] + flags + base[2:]
+    tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+    for flags in _FLAG_LADDER:
+        cmd = ["g++", *flags, *_BASE_FLAGS, str(_SRC), "-o", str(tmp)]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            return so_path
         except (subprocess.CalledProcessError, FileNotFoundError, subprocess.TimeoutExpired):
             continue
+        os.replace(tmp, so_path)  # atomic: concurrent builders race safely
+        return so_path
     return None
 
 
@@ -60,7 +78,6 @@ def _load() -> Optional[ctypes.CDLL]:
         u8p, i64, i64, i32, u8p, i32p, ctypes.POINTER(i64), i32,
     ]
     lib.h2r_pack_lines.restype = i64
-    lib.h2r_tile_corpus.argtypes = [u8p, i64, i64, i64, i64, i32p]
     lib.h2r_num_threads.restype = ctypes.c_int
     _LIB = lib
     return lib
@@ -179,22 +196,6 @@ def pack_lines(
         ctypes.byref(trunc), nl,
     )
     return chars, lengths, int(trunc.value)
-
-
-def tile_corpus(chars: np.ndarray, L_pad: int) -> np.ndarray:
-    """Multithreaded host packer for the tiled input contract
-    (ops/bitplane.py ``tile_corpus``): [B, L] uint8 -> [NWS, 8, L_pad,
-    128] int32 quad words.  Pads B up to a multiple of 4096 and L up to
-    L_pad (tail strings/positions read as zero bytes)."""
-    lib = _load()
-    assert lib is not None
-    chars = np.ascontiguousarray(chars, np.uint8)
-    B, L = chars.shape
-    assert L <= L_pad
-    nws = -(-B // 4096)
-    out = np.empty((nws, 8, L_pad, 128), np.int32)
-    lib.h2r_tile_corpus(_u8p(chars), B, L, L_pad, nws, _i32p(out))
-    return out
 
 
 def match_substrs_native(model, chars: np.ndarray, lengths: np.ndarray):

@@ -180,58 +180,6 @@ int64_t h2r_pack_lines(const uint8_t* data, int64_t data_len, int64_t max_len,
   return n;
 }
 
-// Host-side packer for the tiled input contract (ops/bitplane.py
-// tile_corpus): [B, L] uint8 chars -> [NWS, 8, L_pad, LANE(=128)] int32
-// quad words, T[nws][m][l][lane] packing bytes s=0..3 of strings
-// g = 4*((nws*128+lane) + NW*m) + s at position l (NW = NWS*128).
-// B may be short of NWS*4096 and L short of L_pad; the tail reads as
-// zero bytes.  Parallel over (nws, m); each (lane-block, l-block) tile
-// stays in L1 so neither the strided reads nor the strided writes leave
-// cache unmerged.
-void h2r_tile_corpus(const uint8_t* chars, int64_t B, int64_t L,
-                     int64_t L_pad, int64_t NWS, int32_t* out) {
-  const int64_t LANE = 128;
-  const int64_t NW = NWS * LANE;
-  const int64_t LB = 128;  // l-block: 128*LANE*4B = 64 KB tile
-#pragma omp parallel for schedule(static) collapse(2)
-  for (int64_t nws = 0; nws < NWS; ++nws) {
-    for (int64_t m = 0; m < 8; ++m) {
-      int32_t* dst = out + ((nws * 8 + m) * L_pad) * LANE;
-      for (int64_t l0 = 0; l0 < L_pad; l0 += LB) {
-        int64_t l1 = std::min(l0 + LB, L_pad);
-        for (int64_t lane = 0; lane < LANE; ++lane) {
-          int64_t g = 4 * ((nws * LANE + lane) + NW * m);
-          if (g + 3 < B) {
-            const uint8_t* r0 = chars + (g + 0) * L;
-            const uint8_t* r1 = chars + (g + 1) * L;
-            const uint8_t* r2 = chars + (g + 2) * L;
-            const uint8_t* r3 = chars + (g + 3) * L;
-            for (int64_t l = l0; l < l1; ++l) {
-              int32_t w = 0;
-              if (l < L) {
-                w = (int32_t)r0[l] | ((int32_t)r1[l] << 8) |
-                    ((int32_t)r2[l] << 16) | ((int32_t)r3[l] << 24);
-              }
-              dst[l * LANE + lane] = w;
-            }
-          } else {  // partial/empty quad at the batch tail
-            for (int64_t l = l0; l < l1; ++l) {
-              int32_t w = 0;
-              if (l < L) {
-                for (int s = 0; s < 4; ++s) {
-                  if (g + s < B)
-                    w |= (int32_t)chars[(g + s) * L + l] << (8 * s);
-                }
-              }
-              dst[l * LANE + lane] = w;
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
 int h2r_num_threads() {
 #ifdef _OPENMP
   return omp_get_max_threads();

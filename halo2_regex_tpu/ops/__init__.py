@@ -1,53 +1,49 @@
 """Scan backends.
 
-``best_matcher`` picks the fastest backend a model supports:
-bit-sliced bitplane pipeline (small DFAs, TPU) > fused split Pallas
-kernels (any DFA, TPU) > portable XLA scan.
+``best_matcher`` picks a backend from what it can observe — the platform
+and whether the model fits the fused kernel's packed table:
+
+  ``gpu`` — :class:`.gpu_scan.GpuScanMatcher`, the fused scan kernel
+            (Pallas, Triton route); chosen on a GPU;
+  ``xla`` — :class:`.scan_jax.BatchMatcher`, the portable ``lax.scan``
+            path; chosen on every other platform, and on a GPU for a
+            model the packed table cannot hold.
 """
 
 from __future__ import annotations
 
+BACKENDS = ("auto", "gpu", "xla")
 
-def best_matcher(model, backend: str = "auto", **kwargs):
+
+def best_matcher(model, backend: str = "auto", columns: str = "full",
+                 interpret: bool = False):
     """Return ``(matcher, backend_name)``.
 
-    ``backend``: "auto" | "bitplane" | "pallas" | "xla".  Auto tries the
-    TPU backends in speed order and falls back on any constructor error
-    (e.g. a model whose synthesized circuit exceeds the bitplane budget).
-    ``kwargs`` are forwarded to the chosen matcher's constructor.
+    ``backend``: "auto" | "gpu" | "xla".  An explicit "gpu" on another
+    platform raises unless ``interpret=True`` (tests: the kernel runs
+    through the Pallas interpreter), and raises for a model that does not
+    fit the packed table.  ``columns`` ("full" | "witness" | "match")
+    selects the kernel's outputs; the xla backend always returns the full
+    column set, which carries every verdict, and refuses "witness".
     """
     import jax
 
+    from .gpu_scan import GpuScanMatcher, table_fit
     from .scan_jax import BatchMatcher
 
-    on_tpu = jax.devices()[0].platform == "tpu"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
     if backend == "auto":
-        candidates = ("bitplane", "pallas", "xla") if on_tpu else ("xla",)
-    else:
-        candidates = (backend,)
-    last: Exception | None = None
-    for name in candidates:
-        try:
-            if name == "bitplane":
-                from .bitplane import BitplaneMatcher
-
-                kw = dict(kwargs)
-                if not on_tpu:
-                    # explicit bitplane request off-TPU: interpret-mode
-                    # kernels (correct, slow) instead of a Mosaic
-                    # lowering failure at first call
-                    kw.setdefault("interpret", True)
-                return BitplaneMatcher(model, **kw), "bitplane"
-            if name == "pallas":
-                from .pallas_scan import PallasMatcher
-
-                kw = {k: v for k, v in kwargs.items() if k != "columns"}
-                if not on_tpu:
-                    kw.setdefault("interpret", True)
-                return PallasMatcher(model, **kw), "pallas"
-            if name == "xla":
-                return BatchMatcher(model), "xla"
-            raise ValueError(f"unknown backend {name!r}")
-        except Exception as e:  # fall through the ladder
-            last = e
-    raise last  # every candidate failed
+        on_gpu = jax.devices()[0].platform == "gpu"
+        backend = "gpu" if on_gpu and table_fit(model) is None else "xla"
+    if backend == "gpu":
+        reason = table_fit(model)
+        if reason is not None:
+            raise ValueError(f"backend='gpu': {reason}")
+        return GpuScanMatcher(model, columns=columns, interpret=interpret), "gpu"
+    if columns == "witness":
+        raise ValueError(
+            "backend='xla' emits the full column set only; "
+            "columns='witness' needs backend='gpu'"
+        )
+    return BatchMatcher(model), "xla"

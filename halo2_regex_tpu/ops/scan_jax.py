@@ -93,8 +93,8 @@ def _match_core(arrays: dict, n_defs: int, chars: jnp.ndarray, lengths: jnp.ndar
 
     All defs run in ONE ``lax.scan`` (the carry is [B, n_defs] states and
     each step one fused gather over the def-stacked flat table) — per-step
-    overhead dominates this path on TPU, so def-vectorizing is an n_defs-x
-    win for multi-def models."""
+    overhead dominates this path, so def-vectorizing is an n_defs-x win
+    for multi-def models."""
     B, L = chars.shape
     S = arrays["transition"].shape[-1]
     pos = jnp.arange(L, dtype=jnp.int32)

@@ -1,11 +1,11 @@
 """Data-parallel corpus matching over a device mesh.
 
 Shards the batch dimension across the mesh's data axis with the transition
-tables replicated per chip; per-shard scans are independent, and only the
+tables replicated per device; per-shard scans are independent, and only the
 summary statistics (match counts, extracted-byte counts, failure flags)
-reduce across the mesh — XLA lowers those ``sum``s to ``psum`` collectives
-over ICI/DCN (BASELINE north_star; the reference has no distributed path to
-mirror, SURVEY §5.8).
+reduce across the mesh — XLA lowers those ``sum``s to all-reduce
+collectives (NCCL over NVLink between the cards of a host; the reference
+has no distributed path to mirror, SURVEY §5.8).
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ class DistributedMatcher:
         self,
         model: CompiledRegexModel,
         mesh: Optional[Mesh] = None,
-        backend: str = "xla",  # "xla" | "pallas" (fused kernel per shard)
-        pallas_kwargs: Optional[dict] = None,
+        backend: str = "xla",  # "xla" | "gpu" (fused kernel per shard)
+        interpret: bool = False,  # gpu kernel through the interpreter
     ):
         self.model = model
         self.mesh = mesh if mesh is not None else make_mesh()
@@ -50,22 +50,23 @@ class DistributedMatcher:
         in_shard = batch_sharding(self.mesh)
         len_shard = NamedSharding(self.mesh, P(DATA_AXIS))
 
-        if backend == "pallas":
-            from ..ops.pallas_scan import PallasMatcher
+        if backend == "gpu":
+            from ..ops.gpu_scan import GpuScanMatcher
             from jax import shard_map
 
-            pm = PallasMatcher(model, **(pallas_kwargs or {}))
-            self.pallas = pm
+            gm = GpuScanMatcher(model, interpret=interpret)
             core = shard_map(
-                pm.core,
+                gm.core,
                 mesh=self.mesh,
                 in_specs=(P(DATA_AXIS), P(DATA_AXIS)),
                 out_specs=P(DATA_AXIS),
                 check_vma=False,
             )
-        else:
+        elif backend == "xla":
             def core(chars, lengths):
                 return _match_core(arrays, n_defs, chars, lengths)
+        else:
+            raise ValueError(f"backend={backend!r}: expected xla/gpu")
 
         def run(chars, lengths):
             out = core(chars, lengths)

@@ -1,15 +1,14 @@
 """Multi-host SPMD corpus-scan launcher.
 
-Run the same command on every host of a TPU pod slice (one process per
-host); `jax.distributed` wires the hosts together and the global mesh
-spans every chip (BASELINE configs[4]):
+Run the same command on every host of a cluster (one process per host);
+`jax.distributed` wires the hosts together and the global mesh spans
+every device:
 
     python -m halo2_regex_tpu.parallel.launch \
         --model model.npz --corpus 'shard-*.txt' \
         [--coordinator host0:1234 --num-processes N --process-id i]
 
-On cloud TPU VMs the coordinator args are auto-detected from the TPU
-environment and can be omitted. Each process loads its round-robin share
+Each process loads its round-robin share
 of the corpus files (utils.io.CorpusLoader process sharding), feeds its
 per-host slice of the global data-parallel batch, and the match-count
 statistics psum-reduce across the slice; process 0 prints them.

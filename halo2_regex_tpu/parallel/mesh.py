@@ -1,10 +1,9 @@
 """Device mesh and distributed-runtime helpers.
 
 The reference is single-threaded library code with no distributed components
-(SURVEY §2 "Parallelism: NONE") — scaling is a first-class component of the
-TPU build instead: corpora shard data-parallel over a ``jax.sharding.Mesh``,
-transition tables are replicated per chip, and reductions ride XLA
-collectives over ICI/DCN (BASELINE configs[4]).
+(SURVEY §2 "Parallelism: NONE") — scaling is a first-class component here:
+corpora shard data-parallel over a ``jax.sharding.Mesh``, transition tables
+are replicated per device, and reductions ride XLA collectives (NCCL).
 """
 
 from __future__ import annotations
@@ -26,8 +25,8 @@ def initialize_distributed(
     process_id: Optional[int] = None,
 ) -> None:
     """Initialize the multi-host runtime (``jax.distributed``). No-op for
-    single-process runs; on a pod slice each host calls this with its
-    coordinator address (or relies on the TPU env auto-detection)."""
+    single-process runs; on a multi-host cluster each host calls this with
+    the coordinator address, the process count and its own process id."""
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -45,9 +44,10 @@ def make_mesh(
 ) -> Mesh:
     """Build a ``(data, seq)`` mesh over the available devices.
 
-    ``data`` defaults to ``n_devices // seq``. The data axis is the outer
-    (DCN-friendly) axis; the sequence axis is inner so its collectives ride
-    ICI neighbors.
+    ``data`` defaults to ``n_devices // seq``.  The cards of a host are
+    joined all to all (NVLink), so the layout follows the algorithm alone:
+    the data axis carries independent shards, the seq axis the
+    boundary-state exchanges of a sharded long input.
     """
     devs = list(devices if devices is not None else jax.devices())
     n = len(devs)

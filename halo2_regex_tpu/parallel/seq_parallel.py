@@ -324,15 +324,15 @@ def _xla_shard_scan(arrays, n_defs):
 
 
 def _spec_scan_shard(arrays, n_defs, per_shard_scan, chars, lengths):
-    """shard_map body (SPECULATIVE scheme, docs/ROADMAP.md #7 /
-    arXiv:1210.5093): every shard scans ONCE from a speculated entry state
-    (the DFA's first state — exact for shard 0, a resync guess elsewhere),
+    """shard_map body (SPECULATIVE scheme, arXiv:1210.5093): every shard
+    scans ONCE from a speculated entry state (the DFA's first state —
+    exact for shard 0, a resync guess elsewhere),
     the (speculated, actual-exit) boundary states are exchanged, and the
     loop repeats only until entries reach the global fixed point — one
     extra round when the DFA resynchronizes quickly (email-style scanning
     models), at most n_seq rounds for adversarial tables (always exact).
     Per-shard work is 1x (vs the exact scheme's n_live x map composition),
-    and the scan hook is pluggable (XLA scan / segmented Pallas kernel)."""
+    and the scan hook is pluggable (XLA scan / fused GPU kernel)."""
     B, Ls = chars.shape
     n = jax.lax.axis_size(SEQ_AXIS)
     idx = jax.lax.axis_index(SEQ_AXIS)
@@ -395,17 +395,16 @@ _SEQ_OUT_SPECS = dict(
 
 class SpeculativeSeqMatcher:
     """Sequence-sharded matcher using SPECULATIVE boundary resolution
-    (docs/ROADMAP.md #7): each shard scans once from a speculated entry,
+    (arXiv:1210.5093): each shard scans once from a speculated entry,
     boundary states are exchanged, and only on mismatch does another round
     run — 1x per-shard work for resyncing DFAs vs the exact scheme's
     n_live x map composition.  Always exact (fixed-point iteration, at
     most n_seq rounds).  ``per_shard`` picks the shard-local scan kernel:
 
-      "xla"    — lax.scan (any platform; the dryrun/virtual-mesh path)
-      "pallas" — the segmented split-Pallas kernels via
-                 PallasMatcher.scan_states_tm (TPU; interpret=True for
-                 virtual meshes), composing BASELINE configs[3]'s
-                 long-input kernels with multi-chip sequence sharding.
+      "xla" — lax.scan (any platform; the virtual-mesh path)
+      "gpu" — the fused kernel's entry-state scan
+              (GpuScanMatcher.scan_from; ``interpret=True`` runs it
+              through the Pallas interpreter on virtual meshes).
 
     Outputs carry ``spec_rounds``: how many scan rounds the fixed point
     took (1 = speculation was immediately right everywhere).
@@ -416,7 +415,7 @@ class SpeculativeSeqMatcher:
         model: CompiledRegexModel,
         mesh: Mesh,
         per_shard: str = "xla",
-        pallas_kwargs: dict | None = None,
+        interpret: bool = False,
     ):
         self.model = model
         self.mesh = mesh
@@ -425,27 +424,17 @@ class SpeculativeSeqMatcher:
         seq = mesh.shape[SEQ_AXIS]
         Ls = model.max_chars_size // seq
 
-        if per_shard == "pallas":
-            from ..ops.pallas_scan import PallasMatcher
+        if per_shard == "gpu":
+            from ..ops.gpu_scan import GpuScanMatcher
             import dataclasses
 
             shard_model = dataclasses.replace(model, max_chars_size=Ls)
-            pm = PallasMatcher(
-                shard_model,
-                mode="split",
-                grid_mode="segmented",
-                **(pallas_kwargs or {}),
-            )
-
-            def scan_hook(chars, entries):
-                ctm = chars.astype(jnp.int32).T  # [Ls, B] time-major
-                states_tm = pm.scan_states_tm(ctm, entries, chars.shape[0])
-                return states_tm.transpose(0, 2, 1)  # [n_defs, B, Ls]
+            scan_hook = GpuScanMatcher(shard_model, interpret=interpret).scan_from
 
         elif per_shard == "xla":
             scan_hook = _xla_shard_scan(arrays, n_defs)
         else:
-            raise ValueError(f"per_shard={per_shard!r}: expected xla/pallas")
+            raise ValueError(f"per_shard={per_shard!r}: expected xla/gpu")
         self.per_shard = per_shard
 
         fn = partial(_spec_scan_shard, arrays, n_defs, scan_hook)

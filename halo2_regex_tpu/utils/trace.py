@@ -60,7 +60,7 @@ class Counters:
     def update(self, result, lengths, n_valid: Optional[int] = None) -> None:
         import numpy as np
 
-        # result may be a RegexResult or an emission dict (the bitplane
+        # result may be a RegexResult or an emission dict (the gpu
         # backend's columns="witness"/"match" modes)
         get = (
             result.__getitem__ if isinstance(result, dict)

@@ -1,6 +1,6 @@
 """Expand the compact witness emission back to the full column set.
 
-The bitplane backend's ``columns="witness"`` mode emits the BASELINE
+The gpu backend's ``columns="witness"`` mode emits the BASELINE
 ScanTraffic column set (~6 B/input byte): per-def state rows, masked ids,
 masked characters and one packed flags byte.  That set plus the raw input
 is sufficient witness data — every remaining ``RegexResult`` column is a
@@ -28,7 +28,7 @@ def expand_witness(
 
     Args:
       model: the compiled model the witness was generated with.
-      w: the dict returned by ``BitplaneMatcher(columns="witness")``.
+      w: the dict returned by ``GpuScanMatcher(columns="witness")``.
       chars: the raw input bytes ``[B, L]`` (the compact set carries only
         masked characters; unmasked bytes come from the caller's input).
 

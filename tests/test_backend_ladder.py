@@ -1,4 +1,4 @@
-"""ops.best_matcher backend-selection ladder (the CLI/bench entry point)."""
+"""ops.best_matcher backend selection (the CLI/bench entry point)."""
 
 import numpy as np
 import pytest
@@ -29,36 +29,16 @@ def test_unknown_backend_raises(model):
         best_matcher(model, backend="cuda")
 
 
-def test_explicit_bitplane_interpret_matches_xla(model):
-    mb, name = best_matcher(model, backend="bitplane", interpret=True)
-    assert name == "bitplane"
+def test_explicit_gpu_interpret_matches_xla(model):
+    mg, name = best_matcher(model, backend="gpu", interpret=True)
+    assert name == "gpu"
     mx, _ = best_matcher(model, backend="xla")
     line = b"from:a@b.cd\r\n"
-    a, b = mb.match_one(line), mx.match_one(line)
+    a, b = mg.match_one(line), mx.match_one(line)
     assert (np.asarray(a.masked_characters) == np.asarray(b.masked_characters)).all()
     assert bool(np.asarray(a.match_ok)) == bool(np.asarray(b.match_ok))
 
 
-def test_env_knob_validation(model, monkeypatch):
-    from halo2_regex_tpu.ops.bitplane import BitplaneMatcher
-
-    monkeypatch.setenv("H2R_CLASS_STAGE", "bogus")
-    with pytest.raises(ValueError, match="H2R_CLASS_STAGE"):
-        BitplaneMatcher(model, interpret=True)
-    monkeypatch.setenv("H2R_CLASS_STAGE", "onehot")
-    m = BitplaneMatcher(model, interpret=True)
-    assert m.class_stage == "onehot"
-    monkeypatch.delenv("H2R_CLASS_STAGE")
-
-    monkeypatch.setenv("H2R_EMIT", "DIRECT")
-    m = BitplaneMatcher(model, columns="witness", interpret=True)
-    assert m._emit == "direct"
-    monkeypatch.setenv("H2R_EMIT", "dirct")
-    with pytest.raises(ValueError, match="H2R_EMIT"):
-        BitplaneMatcher(model, columns="witness", interpret=True)
-    monkeypatch.delenv("H2R_EMIT")
-
-    with pytest.raises(ValueError, match="mutually exclusive"):
-        BitplaneMatcher(
-            model, interpret=True, class_stage="binary", fuse_pack=True
-        )
+def test_explicit_gpu_off_gpu_raises(model):
+    with pytest.raises(ValueError, match="interpret"):
+        best_matcher(model, backend="gpu")

@@ -92,12 +92,13 @@ def test_dfa_agrees_with_re(seed):
     assert checked > 300  # the generator actually produced cases
 
 
-def test_bitplane_matches_re_on_random_models():
-    """End-to-end: random toy-grammar model -> bitslice synthesis ->
-    bitplane kernels (interpret) must agree with `re` acceptance."""
+def test_gpu_kernel_matches_re_on_random_models():
+    """End-to-end: random toy-grammar model -> packed table -> fused GPU
+    kernel (Pallas interpreter) must agree with `re` acceptance."""
     from halo2_regex_tpu.compiler.decomposed import DecomposedRegexConfig
     from halo2_regex_tpu.models.compiled import CompiledRegexModel
-    from halo2_regex_tpu.ops.bitplane import BitplaneMatcher
+    from halo2_regex_tpu.ops.gpu_scan import GpuScanMatcher
+    from halo2_regex_tpu.ops.scan_jax import pack_batch
 
     rng = np.random.default_rng(42)
     models_checked = 0
@@ -131,17 +132,15 @@ def test_bitplane_matches_re_on_random_models():
             model = CompiledRegexModel.from_decomposed(
                 cfg, max_chars_size=16, multi_accept=True
             )
-            matcher = BitplaneMatcher(model, interpret=True)
         except Exception:
-            continue  # unsynthesizable edge: covered by other tests
+            continue  # compiler edge: covered by the compiler fuzz above
+        matcher = GpuScanMatcher(model, interpret=True)
         inputs = set(samples[:4])
         inputs.update(gen_input(rng, int(rng.integers(0, 10))) for _ in range(6))
-        for s in inputs:
-            if len(s) > 16:
-                continue
-            res = matcher.match_one(s.encode())
-            ours = bool(np.asarray(res.match_ok))
-            theirs = py.fullmatch(s) is not None
-            assert ours == theirs, (pat, s, ours, theirs)
+        inputs = sorted(s for s in inputs if len(s) <= 16)
+        chars, lengths = pack_batch([s.encode() for s in inputs], 16)
+        ours = np.asarray(matcher(chars, lengths).match_ok).tolist()
+        theirs = [py.fullmatch(s) is not None for s in inputs]
+        assert ours == theirs, (pat, inputs, ours, theirs)
         models_checked += 1
     assert models_checked >= 8

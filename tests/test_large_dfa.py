@@ -58,13 +58,21 @@ def test_large_dfa_xla_vs_oracle(big_model):
             )
 
 
-def test_large_dfa_pallas_refuses_cleanly(big_model):
-    """With the default pair cap the many-pair stress model raises a clear
-    error (XLA fallback); raising max_pairs unlocks the hi/lo split path."""
-    from halo2_regex_tpu.ops.pallas_scan import PallasMatcher
+def test_large_dfa_gpu_kernel_refuses_cleanly(big_model):
+    """A model beyond the packed table's 2**16 states is refused by an
+    explicit check (best_matcher's auto choice then takes XLA)."""
+    import dataclasses
 
-    with pytest.raises(ValueError, match="pairs"):
-        PallasMatcher(big_model, interpret=True)
+    from halo2_regex_tpu.ops import best_matcher
+    from halo2_regex_tpu.ops.gpu_scan import GpuScanMatcher, table_fit
+
+    assert table_fit(big_model) is None
+    too_big = dataclasses.replace(big_model, s_pad=1 << 17)
+    assert "states" in table_fit(too_big)
+    with pytest.raises(ValueError, match="states"):
+        GpuScanMatcher(too_big, interpret=True)
+    with pytest.raises(ValueError, match="states"):
+        best_matcher(too_big, backend="gpu", interpret=True)
 
 
 def test_large_dfa_dead_on_foreign_byte(big_model):
@@ -73,13 +81,13 @@ def test_large_dfa_dead_on_foreign_byte(big_model):
     assert not bool(res.match_ok)
 
 
-def test_large_dfa_pallas_hi_lo_split(big_model):
-    """>256-state models run on the Pallas split path via lo/hi byte-plane
-    tables (interpret mode), bit-exact vs the oracle."""
-    from halo2_regex_tpu.ops.pallas_scan import PallasMatcher
+def test_large_dfa_gpu_kernel_wide_states(big_model):
+    """>256-state models run on the fused kernel (states past a byte in
+    the packed word), bit-exact vs the oracle (Pallas interpreter)."""
+    from halo2_regex_tpu.ops.gpu_scan import GpuScanMatcher
 
-    m = PallasMatcher(big_model, batch_tile=8, interpret=True, max_pairs=1024)
-    assert m.hi_lo and m.mode == "split" and m.scan_stride == 1
+    m = GpuScanMatcher(big_model, interpret=True)
+    assert big_model.s_pad > 256
     rng = np.random.default_rng(3)
     strings = [
         bytes(rng.integers(97, 123, size=int(rng.integers(0, 64))).astype(np.uint8))

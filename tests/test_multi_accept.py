@@ -107,21 +107,14 @@ def test_backends_match_python_re(model_ma):
     got_xla = np.asarray(BatchMatcher(model_ma)(chars, lengths).match_ok)
     assert got_xla.tolist() == expect
 
-    from halo2_regex_tpu.ops.bitplane import BitplaneMatcher
+    from halo2_regex_tpu.ops.gpu_scan import GpuScanMatcher
 
-    got_bp = np.asarray(
-        BitplaneMatcher(model_ma, interpret=True)(chars, lengths).match_ok
-    )
-    assert got_bp.tolist() == expect
-
-    from halo2_regex_tpu.ops.pallas_scan import PallasMatcher
-
-    got_pl = np.asarray(
-        PallasMatcher(model_ma, batch_tile=8, interpret=True)(
+    for columns in ("full", "witness", "match"):
+        out = GpuScanMatcher(model_ma, columns=columns, interpret=True)(
             chars, lengths
-        ).match_ok
-    )
-    assert got_pl.tolist() == expect
+        )
+        got = out.match_ok if columns == "full" else out["match_ok"]
+        assert np.asarray(got).tolist() == expect, columns
 
 
 def test_text_format_extension_round_trip(cfg, tmp_path):

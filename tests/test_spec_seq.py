@@ -61,14 +61,11 @@ def test_speculative_xla_matches_exact(model3, mesh):
     assert int(np.asarray(spec["spec_rounds"])[0]) <= 2
 
 
-def test_speculative_pallas_segmented_matches_exact(model3, mesh):
+def test_speculative_gpu_kernel_matches_exact(model3, mesh):
     chars, lengths = pack_batch(STRINGS, L)
     exact = SeqShardedMatcher(model3, mesh)(chars, lengths)
     spec = SpeculativeSeqMatcher(
-        model3,
-        mesh,
-        per_shard="pallas",
-        pallas_kwargs=dict(interpret=True, batch_tile=4),
+        model3, mesh, per_shard="gpu", interpret=True
     )(chars, lengths)
     _assert_equal(exact, {k: spec[k] for k in exact})
 

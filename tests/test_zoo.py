@@ -1,5 +1,5 @@
-"""Every zoo model compiles and matches correctly through the Pallas path
-(interpret) against the oracle."""
+"""Every zoo model compiles and matches correctly through the fused GPU
+kernel (Pallas interpreter on the CPU) against the oracle."""
 
 import numpy as np
 import pytest
@@ -7,7 +7,7 @@ import pytest
 from halo2_regex_tpu.models import zoo
 from halo2_regex_tpu.models.compiled import CompiledRegexModel
 from halo2_regex_tpu.ops import reference as ref_ops
-from halo2_regex_tpu.ops.pallas_scan import PallasMatcher
+from halo2_regex_tpu.ops.gpu_scan import GpuScanMatcher
 
 SAMPLES = {
     "email_from": (b"x\r\nfrom:alice@gmail.com\r\n", "alice@gmail.com"),
@@ -25,10 +25,10 @@ NEGATIVE = {
 
 
 @pytest.mark.parametrize("name", sorted(SAMPLES))
-def test_zoo_model_pallas_vs_oracle(name):
+def test_zoo_model_gpu_kernel_vs_oracle(name):
     cfg = zoo.get_config(name, 96)
     model = CompiledRegexModel.from_decomposed(cfg, max_chars_size=96)
-    m = PallasMatcher(model, batch_tile=8, interpret=True)
+    m = GpuScanMatcher(model, interpret=True)
     s, expected_sub = SAMPLES[name]
     res = m.match_one(s)
     oracle = ref_ops.match_substrs(model.regex_defs, s, 96)
@@ -48,33 +48,10 @@ def test_zoo_model_pallas_vs_oracle(name):
 
 def test_email_headers_model_multi():
     model = zoo.email_headers_model(max_chars_size=96)
-    m = PallasMatcher(model, batch_tile=8, interpret=True)
+    m = GpuScanMatcher(model, interpret=True)
     res = m.match_one(b"x\r\nfrom:alice@gmail.com\r\n")
     # only the `from` def accepts this input
     assert np.asarray(res.accepted).tolist() == [True, False, False]
     subs = ref_ops.extract_substrings(res)
     assert subs and subs[0][1] == "alice@gmail.com"
 
-
-def test_zoo_models_synthesize_for_bitplane():
-    """Every zoo model must either synthesize for the bit-sliced backend
-    (and stay bit-exact) or raise cleanly for the fallback ladder."""
-    import numpy as np
-
-    from halo2_regex_tpu.models import zoo
-    from halo2_regex_tpu.ops import reference as ref_ops
-    from halo2_regex_tpu.ops.bitplane import BitplaneMatcher
-
-    model = zoo.email_headers_model(max_chars_size=64, headers=("from", "to"))
-    m = BitplaneMatcher(model, interpret=True)
-    s = b"from:a@b.cd\r\n"
-    res = m.match_one(s)
-    oracle = ref_ops.match_substrs(model.regex_defs, s, 64)
-    np.testing.assert_array_equal(
-        np.asarray(res.states).astype(np.int64), oracle.states
-    )
-    np.testing.assert_array_equal(
-        np.asarray(res.all_substr_ids).astype(np.int64), oracle.all_substr_ids
-    )
-    for c in m.circuits:
-        assert c.step_ops < 1500, f"unexpectedly large circuit {c.step_ops}"
